@@ -3,7 +3,7 @@
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "detail"}.
 
-Headline metric: wavefront cells/s, single chip, on 100 kb 2%-diverged
+Headline metric: wavefront cells/s, one GPU, on 100 kb 2%-diverged
 pairs in exact score mode — the reference's own throughput unit
 (r->n_iter per second; BASELINE.md: single-core C ≈ 2.3e8 cells/s on the
 same workload).  vs_baseline = value / 2.3e8.
@@ -11,7 +11,7 @@ same workload).  vs_baseline = value / 2.3e8.
 Every row asserts parity against reference-binary goldens committed in
 tests/data/bench_goldens.json (generated by tools/make_bench_goldens.py
 from the C oracle): scores for every pair, plus a CIGAR digest and a
-low-mem == high-mem cross-check on the first pair.  ``parity`` in the
+low-mem == high-mem cross-check for every pair.  ``parity`` in the
 detail is the AND of all checks — a benchmark number with parity=false is
 meaningless and the run exits non-zero.
 
@@ -68,6 +68,11 @@ def main() -> int:
     b = int(os.environ.get("MWF_BENCH_B", 16))
     reps = int(os.environ.get("MWF_BENCH_REPS", 3))
 
+    import jax
+    if jax.default_backend() != "gpu":
+        print(f"bench: measures the GPU, JAX backend is "
+              f"{jax.default_backend()!r}", file=sys.stderr)
+        return 1
     from miniwfa_tpu import Options
     from miniwfa_tpu.models.exact import align_batch
     from miniwfa_tpu.utils import hbm
@@ -159,6 +164,9 @@ def main() -> int:
         "unit": "cells/s",
         "vs_baseline": round(cells_per_s / BASELINE_CELLS_PER_S, 3),
         "detail": {
+            "device": {"platform": jax.devices()[0].platform,
+                       "kind": jax.devices()[0].device_kind,
+                       "count": len(jax.devices())},
             "pairs": b, "pair_bp": n, "reps": reps,
             "batch_wall_s": round(dt, 4),
             "total_cells": total_cells,

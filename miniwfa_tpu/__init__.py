@@ -1,10 +1,10 @@
-"""miniwfa_tpu — a TPU-native wavefront sequence-alignment framework.
+"""miniwfa_tpu — a batched wavefront sequence-alignment framework in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the WaveFront Alignment
+A from-scratch JAX/XLA implementation of the WaveFront Alignment
 algorithm under dual (two-piece) affine gap penalties, with the full
 capability surface of lh3/miniwfa: exact high-memory alignment with packed
 traceback, the exact low-memory stripe mode, heuristic k-mer chaining, and
-an auto mode — batched data-parallel across TPU chips and hosts.
+an auto mode — batched, data-parallel across GPUs and hosts.
 
 Public API (mirrors miniwfa.h:62-85):
     Options            — scoring / mode parameters (mwf_opt_t)

@@ -5,9 +5,9 @@ miniwfa.c:850-896).
 Host plans the segment lists (anchors, gap classification via k-mer
 similarity) with vectorized numpy; the exact gap sub-alignments of a WHOLE
 BATCH of pairs are dispatched to the device as ONE align_batch call — the
-TPU-native twist: the reference aligns gaps one at a time; cross-pair gap
-batching keeps the chip's lanes full and is the natural intra-pair
-parallelism source for huge sequences (SURVEY.md §5).
+reference aligns gaps one at a time; cross-pair gap batching keeps the
+device's lanes full and is the natural intra-pair parallelism source for
+huge sequences (SURVEY.md §5).
 
 ``Result.n_iter`` in chain mode is the sum of the gap fills' wavefront
 cells (the reference leaves r->n_iter unset here — its gap results are
@@ -84,29 +84,11 @@ def align_chain_batch(pairs: Sequence[Tuple[object, object]],
             gap_of.append((pi, int(i)))
     gap_results: List[Optional[Result]] = [None] * len(gap_pairs)
 
-    # window-sized gaps (the vast majority: 99.98% of a 5 Mb pair's ~43k
-    # fills are <=127 bp total) run on the gaps-in-sublanes engine — one
-    # sublane row per gap, thousands of gaps per Pallas grid step —
-    # instead of ms-per-cycle lockstep dispatches (models/tiny.py)
-    from . import tiny as tn
-    pending = list(range(len(gap_pairs)))
-    tiny_sel = [g for g in pending
-                if len(gap_pairs[g][0]) + len(gap_pairs[g][1])
-                <= tn.wg.MAX_TOT]
-    if tiny_sel and tn.tiny_eligible(opt, max(
-            len(gap_pairs[g][0]) + len(gap_pairs[g][1])
-            for g in tiny_sel)):
-        sub = tn.align_tiny_batch([gap_pairs[g] for g in tiny_sel], opt)
-        for g, r in zip(tiny_sel, sub):
-            gap_results[g] = r
-        pending = [g for g in pending if gap_results[g] is None]
-
-    # dispatch the rest in bounded chunks: a Mb-scale pair yields 1e4-1e5
-    # gaps and one giant batch would blow device memory / compile fresh
-    # giant specs.  Sorting by size keeps each chunk's padding buckets
-    # tight.
+    # dispatch in bounded chunks: a Mb-scale pair yields 1e4-1e5 gaps and
+    # one giant batch would blow device memory / compile fresh giant
+    # specs.  Sorting by size keeps each chunk's padding buckets tight.
     CHUNK = 2048
-    order = sorted(pending,
+    order = sorted(range(len(gap_pairs)),
                    key=lambda g: max(len(gap_pairs[g][0]),
                                      len(gap_pairs[g][1])))
     for c0 in range(0, len(order), CHUNK):

@@ -14,7 +14,7 @@ whether a gap step costs e or o+e; leading overhang is emitted as I/D.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -104,80 +104,6 @@ def traceback_walk(
         C.push(cig, C.OP_D, k + 1)
     cig.reverse()
     return cig
-
-
-def _kernel_ptr_to_seg(last: int, c: int, anc: int, spec) -> Tuple[int, int]:
-    """(score, diagonal) encoded by flat pointer ``last`` recorded at
-    snapshot row c (see decode_checkpoints_kernel)."""
-    from ..ops import wavefront_kernel as wk
-
-    p_h, p_e1, p_f1, p_e2, p_f2, _ = wk.snapshot_layout(spec)
-    ages = wk._ages(spec)
-    DH = max(ages["x"], ages["o1"], ages["o2"])
-    DE1 = max(ages["e1"], 1)
-    DE2 = max(ages["e2"], 1)
-    W = (spec.WR + 8) * 128
-    p, w = last // W, last % W
-    if p >= p_f2:
-        j, dp = p - p_f2, DE2
-    elif p >= p_e2:
-        j, dp = p - p_e2, DE2
-    elif p >= p_f1:
-        j, dp = p - p_f1, DE1
-    elif p >= p_e1:
-        j, dp = p - p_e1, DE1
-    else:
-        j, dp = p, DH
-    snap_s = spec.step * (c + 1) - 1
-    return snap_s - ((snap_s - j) % dp), anc + w
-
-
-def decode_checkpoints_ptrs(
-    recs: np.ndarray,      # [cap] chain pointers, recs[i] at row cap-1-i
-    last_fin: int,         # chain carry after the oldest row
-    anc: int,
-    snap_cnt: int,
-    spec,
-) -> List[Tuple[int, int]]:
-    """Checkpoint recovery from an on-device pointer chase
-    (ops.traceback_device.chain_ptrs_on_device) — same output as
-    decode_checkpoints_kernel without fetching the snapshot rows."""
-    cap = recs.shape[0]
-    _check(last_fin == -1,
-           f"pointer chain did not reach origin: {last_fin}")
-    segs: List[Tuple[int, int]] = []
-    for c in range(snap_cnt - 1, -1, -1):
-        last = int(recs[cap - 1 - c])
-        _check(last >= 0, f"pointer chain broke at snapshot {c}: {last}")
-        segs.append(_kernel_ptr_to_seg(last, c, anc, spec))
-    segs.reverse()
-    return segs
-
-
-def decode_checkpoints_kernel(
-    snap_x: np.ndarray,    # [n_snap_cap, NP*WP] int32 (fused-kernel layout)
-    anc: int,              # constant window anchor of the lane
-    snap_cnt: int,
-    last_ptr: int,
-    spec,                  # ops.wavefront_kernel.KSpec
-) -> List[Tuple[int, int]]:
-    """Checkpoint recovery for the fused kernel's snapshot encoding
-    (ops/wavefront_kernel.py snapshot block): a snapshot row serializes the
-    sf rings — exactly the reachable slices, unlike the reference's full
-    NS x 5 stripe (miniwfa.c:451-474) — and a flat pointer is
-    ``plane*WP + w`` (WP = (WR+8)*128, the ring pad stride) with plane
-    mapping to (state ring, slot).  Slot j of a depth-dp ring taken at
-    score snap_s holds score ``snap_s - ((snap_s - j) mod dp)``;
-    diagonal = anc + w."""
-    segs: List[Tuple[int, int]] = []
-    last = int(last_ptr)
-    for c in range(snap_cnt - 1, -1, -1):
-        _check(last >= 0, f"pointer chain broke at snapshot {c}: {last}")
-        segs.append(_kernel_ptr_to_seg(last, c, anc, spec))
-        last = int(snap_x[c, last])
-    _check(last == -1, f"pointer chain did not reach origin: {last}")
-    segs.reverse()
-    return segs
 
 
 def decode_checkpoints(

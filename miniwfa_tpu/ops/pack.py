@@ -1,8 +1,8 @@
-"""Sequence word-packing for the TPU LCP-extension kernel.
+"""Sequence word-packing for the LCP-extension step of the wavefront engine.
 
 The reference extends diagonals by XOR-ing unaligned 64-bit words and
-counting trailing zero bytes (wf_extend1_padded, miniwfa.c:212-226).  The
-TPU has no per-lane unaligned loads, so we precompute all CPW rotations of
+counting trailing zero bytes (wf_extend1_padded, miniwfa.c:212-226).  A
+vector lane cannot load an unaligned word, so we precompute all CPW rotations of
 the packed word stream ("ways"): way ``r`` holds, at word index ``m``, the
 CPW characters starting at position ``m*CPW + r``.  Any 16-char (2-bit
 packing) or 4-char (byte packing) probe anywhere in the sequence is then

@@ -1,4 +1,4 @@
-"""Alignment options for the TPU-native WFA engine.
+"""Alignment options for the batched WFA engine.
 
 Mirrors the semantics of the reference's ``mwf_opt_t`` / ``mwf_opt_init``
 (reference: miniwfa.h:36-44, miniwfa.c:11-18) while using an idiomatic,

@@ -1,8 +1,8 @@
 """Device mesh helpers.
 
 The workload is a stream of independent pair alignments, so the natural
-mesh is one data axis over all chips (ICI) and hosts (DCN): lanes of a
-batch shard across 'data'; each chip runs its own wavefront loop; scalar
+mesh is one data axis over all devices and hosts: lanes of a batch shard
+across 'data'; each device runs its own wavefront loop; scalar
 metrics merge with psum/all_gather (the reference is single-threaded —
 SURVEY.md §2 parallelism inventory maps scale-out to exactly this)."""
 

@@ -2,7 +2,7 @@
 
 The hot device work is all JAX/XLA; these native kernels cover the
 host-side sequential decoders that are O(n+s) pointer chases — too serial
-for the TPU, too slow in pure Python at 5 Mb scale: the traceback walker,
+for the device, too slow in pure Python at 5 Mb scale: the traceback walker,
 the LIS inner loop, and the checkpoint chain decode (SURVEY.md §2 C10/C13/
 C15 → "native component" mapping).
 

@@ -1,6 +1,6 @@
 // mwfrt — native host runtime kernels for miniwfa_tpu.
 //
-// The TPU runs the O(n·s) wavefront; these are the O(n+s) *sequential*
+// The device runs the O(n·s) wavefront; these are the O(n+s) *sequential*
 // host decoders that are pointer-chases by nature (no vector parallelism
 // to exploit) and would be Python-slow at 5 Mb scale:
 //

@@ -3,7 +3,7 @@
 Unlike the fixed golden corpus, this builds lh3/miniwfa from source at
 test time and diffs score+CIGAR on freshly generated pairs — a regression
 net with no dependence on pre-recorded outputs.  Small sizes only (CPU
-backend); tools/fuzz_oracle.py runs the full-size sweep on TPU.
+backend); tools/fuzz_oracle.py runs the full-size sweep.
 """
 
 import os

@@ -1,30 +1,13 @@
-"""Peak-HBM meter (km_stat analog) and structural engine guards."""
-
-import pytest
+"""Device-memory meter (km_stat analog) and the band-limit advice."""
 
 from miniwfa_tpu.options import Options
 from miniwfa_tpu.models.exact import align_batch
-from miniwfa_tpu.ops.wavefront import LAX_TPU_W_CAP, check_lax_tpu_w
 from miniwfa_tpu.utils import hbm
 
 
-def test_lax_tpu_w_guard():
-    # the W=16384 watchdog-kill region (PERF_NOTES.md "Resolved: the
-    # lax W=16384 fault") must be unreachable on TPU by construction
-    with pytest.raises(RuntimeError, match="per-call watchdog"):
-        check_lax_tpu_w(LAX_TPU_W_CAP * 2, backend="tpu")
-    check_lax_tpu_w(LAX_TPU_W_CAP, backend="tpu")     # at the cap: fine
-    check_lax_tpu_w(1 << 20, backend="cpu")           # CPU: no cap
-
-
-def test_lax_tpu_w_guard_override(monkeypatch):
-    monkeypatch.setenv("MWF_LAX_W_UNSAFE", "1")
-    check_lax_tpu_w(1 << 20, backend="tpu")
-
-
 def test_highmem_band_limit_error_documents_lowmem_route():
-    # VERDICT r3 #8: the 5 Mb high-mem CIGAR wall is a documented
-    # capability statement (use -p), not a generic band-limit failure
+    # the 5 Mb high-mem CIGAR wall is a documented capability statement
+    # (use -p), not a generic band-limit failure
     from miniwfa_tpu.models.exact import MODE_SCORE, MODE_TB, \
         _band_limit_error
     err = _band_limit_error(Options(cigar=True), MODE_TB, 65536, 65536)
@@ -62,3 +45,17 @@ def test_hbm_meter_keeps_max():
     total = hbm.note_arrays("arrays", {"a": __import__("numpy").zeros(4096)})
     assert total == 4096 * 8
     assert hbm.peak()[0] == 4096 * 8
+
+
+def test_hbm_meter_records_peak_spec():
+    from miniwfa_tpu.ops.wavefront import MODE_TB, WfSpec
+    hbm.reset()
+    assert hbm.peak_spec() is None
+    t = b"ACGT" * 500
+    q = t[:999] + b"T" + t[1000:]
+    align_batch([(t, q)], Options(cigar=True))
+    spec = hbm.peak_spec()
+    assert isinstance(spec, WfSpec) and spec.mode == MODE_TB
+    assert f"W={spec.W}" in hbm.peak()[1]
+    hbm.reset()
+    assert hbm.peak_spec() is None

@@ -2,43 +2,32 @@
 """Generate bench pair goldens from the reference binary (C oracle).
 
 The bench pairs are deterministic (seeded); their reference scores and
-CIGAR digests are committed so bench.py can assert parity on the real chip
-without needing the reference binary at bench time.
+CIGAR digests are committed so bench.py and chip_smoke.py can assert parity
+on the GPU without needing the reference binary at bench time.
 
-Requires the reference built out-of-tree: /root/refbuild/test-mwf
-(cp /root/reference/*.{c,h} Makefile to /root/refbuild && make test-mwf).
+Requires the reference test-mwf binary, built out-of-tree from
+lh3/miniwfa (path in MWF_REF_BIN).
 """
 import hashlib
 import json
 import os
-import random
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from tools.bench_kernel import mutate, ref_align  # noqa: E402
+from bench import make_pairs  # noqa: E402
+from tools.make_scale_goldens import ref_run  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "data",
                    "bench_goldens.json")
-
-
-def bench_pairs(n, b, seed=7):
-    """The exact pair generator bench.py uses (keep in sync)."""
-    rng = random.Random(seed)
-    pairs = []
-    for _ in range(b):
-        t = "".join(rng.choice("ACGT") for _ in range(n))
-        q = mutate(rng, t, sub=0.02, ind=0.002)
-        pairs.append((t, q))
-    return pairs
 
 
 def main():
     goldens = {}
     for n, b in ((100_000, 16), (8_000, 64)):
         entries = []
-        for i, (t, q) in enumerate(bench_pairs(n, b)):
+        for i, (t, q) in enumerate(make_pairs(n, b)):
             want_cigar = n == 100_000   # digest-check every big pair
-            s, cg, _ = ref_align(t, q, cigar=want_cigar)
+            s, cg, _ = ref_run(t, q, ["-c"] if want_cigar else [])
             e = {"s": s}
             if cg is not None:
                 e["cigar_md5"] = hashlib.md5(cg.encode()).hexdigest()

@@ -5,7 +5,7 @@ This script never copies reference code into the repo: it compiles the
 reference out-of-tree (in a temp dir) from MWF_REF (default /root/reference)
 and records its outputs (score, CIGAR, n_iter) on a deterministic suite of
 sequence pairs into tests/data/goldens.json.  The test-suite then checks the
-TPU engine against those recorded outputs, per SURVEY.md §4's test strategy
+engine against those recorded outputs, per SURVEY.md §4's test strategy
 (golden integration tests + mode cross-checks).
 
 Usage: python tools/make_goldens.py [--ref /root/reference] [--out tests/data/goldens.json]
@@ -129,7 +129,7 @@ def build_cases(ref_dir: str) -> list[dict]:
     add("empty_t", "", "ACGTACGT")
     # NOTE: empty-vs-empty with -c segfaults the *reference* (UB read of
     # tb.a[-1] at miniwfa.c:407 when tb.n==0), so it can't be a golden;
-    # the TPU engine pins its graceful behavior in its own unit test.
+    # this engine pins its graceful behavior in its own unit test.
     add("one_eq", "C", "C")
     add("homopoly", "A" * 40, "A" * 25)
     add("binary", "ABABABABAB", "BABABABABB")

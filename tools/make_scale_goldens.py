@@ -4,17 +4,17 @@
 Sequences are NOT stored: each case pins a deterministic generator
 (seed + params, `gen_case` below) and the fixture records the reference
 binary's outputs (score, cigar md5, n_iter where instrumented) for the
-modes the case exercises.  tools/tpu_golden_check.py regenerates the
-sequences and asserts parity on the real chip.
+modes the case exercises.  chip_smoke.py regenerates the sequences and
+asserts parity on the GPU.
 
-Cases (VERDICT round-2 Missing #5/#6; scale table /root/reference/README.md:80-88):
+Cases (the reference README's scale table, README.md:80-88):
   * 50 kb pair with one 5 kb deletion  — the dual-affine crossover
     (SURVEY.md fixture table: long gap costs o2+l*e2).
   * 100 kb 2%-diverged pair            — exact, low-mem p5000 and chain mode.
   * 5 Mb ~1%-diverged pair             — the reference's headline low-mem
     CIGAR workload (-cp5000, README.md:98-99) plus auto mode.
 
-Requires the reference built out-of-tree at /root/refbuild/test-mwf.
+Requires the reference test-mwf binary (path in MWF_REF_BIN).
 """
 import hashlib
 import json
@@ -26,7 +26,10 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from tools.bench_kernel import mutate, REF  # noqa: E402
+from bench import mutate  # noqa: E402
+
+# the reference test-mwf binary, built out-of-tree from lh3/miniwfa
+REF = os.environ.get("MWF_REF_BIN", "test-mwf")
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "data",
                    "scale_goldens.json")
