@@ -275,16 +275,23 @@ def phase_cli(ctx):
             log(f"cli {' '.join(flags)}: ok {tail.split(chr(9))[1]}")
 
 
+def peaks_line(devs) -> str:
+    return " ".join(
+        f"{d.id}:{(d.memory_stats() or {}).get('peak_bytes_in_use')}"
+        for d in devs)
+
+
 def multi_parity(pairs, gold, mesh, comp=None):
     """The sharded path on ``mesh`` in score, CIGAR and low-mem modes vs
-    the goldens, then single-device align_batch of the same batch in
-    score mode for the ratio (printed, not gated).  Score runs twice on
-    the mesh (the first run compiles); the single-device run repeats only
-    if its first run compiled (``comp``: a Compiles counter)."""
+    the goldens, each followed by every device's peak memory so far; then
+    the ratio (printed, not gated): score once more on the mesh, and
+    align_batch of the same batch on one device, repeated if its first run
+    compiled (``comp``: a Compiles counter)."""
     from miniwfa_tpu import Options
     from miniwfa_tpu.models.exact import align_batch
     from miniwfa_tpu.parallel.batch import align_batch_sharded
-    nd, n = mesh.devices.size, len(pairs)
+    devs = list(mesh.devices.flat)
+    nd, n = len(devs), len(pairs)
     ncomp = (lambda: comp.n) if comp is not None else (lambda: 0)
     for tag, opt, cig in (
             ("score", Options(), None),
@@ -295,7 +302,8 @@ def multi_parity(pairs, gold, mesh, comp=None):
         compare(f"multi/{tag}", res, gold, cigar=cig)
         log(f"multi/{tag}: {n}/{n} ok on {nd} devices [{dt:.3f}s, "
             f"compiles={ncomp() - c0}] "
-            f"n_iter_sum={sum(r.n_iter for r in res)}")
+            f"n_iter_sum={sum(r.n_iter for r in res)} "
+            f"peak_bytes_in_use {peaks_line(devs)}")
     c0 = ncomp()
     res, warm_n = timed(align_batch_sharded, pairs, Options(), mesh)
     log(f"multi/score rerun: {nd} devices {warm_n:.3f}s "

@@ -4,8 +4,8 @@ The reference is single-process (SURVEY.md §2 parallelism inventory); the
 scale-out here is a pair stream sharded across all devices of all hosts:
 ``init()`` brings up ``jax.distributed``, ``global_mesh()`` builds the 1-D
 data mesh over every device in the job, and ``align_batch_sharded`` runs
-over it with scores/cell counters merged by ``psum`` inside the compiled
-program (over NVLink within a host, the network across hosts).
+over it, every device running its own lanes with no collective inside
+the compiled program.
 
 Multi-process contract (implemented in parallel/batch.py): small per-lane
 outputs are ``process_allgather``'d so every process returns them for

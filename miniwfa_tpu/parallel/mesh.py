@@ -2,8 +2,8 @@
 
 The workload is a stream of independent pair alignments, so the natural
 mesh is one data axis over all devices and hosts: lanes of a batch shard
-across 'data'; each device runs its own wavefront loop; scalar
-metrics merge with psum/all_gather (the reference is single-threaded —
+across 'data'; each device runs its own wavefront loop; per-lane
+results are gathered on the host (the reference is single-threaded —
 SURVEY.md §2 parallelism inventory maps scale-out to exactly this)."""
 
 from __future__ import annotations

@@ -98,3 +98,25 @@ def test_tb_budget_below_one_lane_raises_lowmem_advice(monkeypatch):
                         lambda: (1000, CPU_PASS1_SNAP_BUDGET))
     with pytest.raises(RuntimeError, match="low-mem stripe mode"):
         align_batch([("ACGT", "ACGA")], Options(cigar=True))
+
+
+@pytest.mark.parametrize("mode", [MODE_SCORE, MODE_TB])
+def test_first_rung_full_cycle_budget_only_in_score_mode(mode):
+    opt = Options(cigar=mode == MODE_TB)
+    bk = exact._buckets_for(opt, [b"A" * 1000], [b"C" * 900], 512, 512)
+    first, w_cap = exact._first_rung(opt, mode, bk)
+    assert w_cap == exact._w_cap(opt, mode)
+    assert first.W == min(bk.W, w_cap)
+    assert first.S_CAP == (bk.S_full if mode == MODE_SCORE else bk.S_CAP)
+
+
+def test_pass2_rung_sized_from_pass1_scores():
+    opt = Options(cigar=True, step=100)
+    ts, qs = [b"A" * 1000, b"A" * 1010], [b"A" * 1000, b"A" * 1000]
+    bk = exact._buckets_for(opt, ts, qs, 512, 512)
+    ns = opt.max_pen + 1
+    p2 = exact._pass2_buckets(opt, bk, [30, None, 4097], ts, qs)
+    assert p2.S_CAP == min(8192, bk.S_full)
+    assert p2.W == min(exact._next_pow2(2 * 100 + 2 * ns + 24), bk.W_full)
+    # no pass-1 score: the ladder's own rung
+    assert exact._pass2_buckets(opt, bk, [None], ts, qs).S_CAP == bk.S_CAP

@@ -85,3 +85,22 @@ def test_corpus_on_gpu(gpu):
     """The golden corpus in score, CIGAR, low-mem p16 and n_iter modes on
     the card (chip_smoke's corpus phase)."""
     chip_smoke.phase_corpus({})
+
+
+def test_multi_parity_on_four_virtual_devices(goldens, capsys):
+    """``--multi``'s comparison on a 4-device CPU mesh with small corpus
+    cases: sharded score, CIGAR and low-mem against the goldens, per-device
+    peaks, and the single-device ratio run."""
+    import jax
+    from miniwfa_tpu.parallel.mesh import make_mesh
+    idx = [i for i, c in enumerate(goldens["cases"])
+           if max(len(c["t"]), len(c["q"])) <= 256][:8]
+    pairs = [(goldens["cases"][i]["t"], goldens["cases"][i]["q"])
+             for i in idx]
+    gold = [dict(goldens["runs"]["cigar"][i], cigar_md5=chip_smoke.md5(
+        goldens["runs"]["cigar"][i]["cigar"])) for i in idx]
+    chip_smoke.multi_parity(pairs, gold, make_mesh(jax.devices()[:4]))
+    out = capsys.readouterr().out
+    for tag in ("score", "cigar", "lowmem_p5000"):
+        assert f"multi/{tag}: 8/8 ok on 4 devices" in out
+    assert "ratio 1-device/4-device" in out

@@ -138,3 +138,56 @@ def test_sharded_fixtures_score_lowmem_match_goldens(goldens):
     for (i, c), r in zip(cases, res):
         assert r.s == exp[i]["s"], c["name"]
         assert r.cigar_str == exp[i]["cigar"], c["name"]
+
+
+def _spy_sharded(monkeypatch):
+    """Record (mode, B, W, S_CAP) of every sharded dispatch."""
+    from miniwfa_tpu.parallel import batch
+    seen, real = [], batch._run_sharded
+
+    def spy(opt, mode, bk, mesh, axis, ts, qs, idx, *a, **kw):
+        out, spec = real(opt, mode, bk, mesh, axis, ts, qs, idx, *a, **kw)
+        seen.append((mode, spec.B, spec.W, spec.S_CAP))
+        return out, spec
+    monkeypatch.setattr(batch, "_run_sharded", spy)
+    return seen
+
+
+def test_sharded_score_takes_full_cycle_budget(goldens, monkeypatch):
+    """Score mode allocates nothing that scales with S_CAP, so the sharded
+    driver starts at the full score bound like align_batch: only the band
+    window escalates."""
+    from miniwfa_tpu import Options
+    from miniwfa_tpu.models.exact import _buckets_for, as_bytes
+    from miniwfa_tpu.parallel.batch import align_batch_sharded
+    from miniwfa_tpu.parallel.mesh import make_mesh
+
+    c = next(c for c in goldens["cases"] if c["name"] == "t3")
+    pairs = [(c["t"], c["q"])] * 8
+    seen = _spy_sharded(monkeypatch)
+    res = align_batch_sharded(pairs, Options(), make_mesh())
+    bk = _buckets_for(Options(), [as_bytes(c["t"])], [as_bytes(c["q"])],
+                      512, 512)
+    assert seen and all(s == bk.S_full for _, _, _, s in seen)
+    assert [r.s for r in res] == [155] * 8
+
+
+def test_sharded_tb_lane_cap_is_per_device(goldens, monkeypatch):
+    """A traceback budget of one 512x512 lane per device splits a 16-pair
+    CIGAR batch on the 8-device mesh into two dispatches of 8 lanes; the
+    CIGARs are unchanged."""
+    from miniwfa_tpu import Options
+    from miniwfa_tpu.models import exact
+    from miniwfa_tpu.parallel.batch import align_batch_sharded
+    from miniwfa_tpu.parallel.mesh import make_mesh
+
+    c = next(c for c in goldens["cases"] if c["name"] == "t3")
+    pairs = ([(c["t"], c["q"])] * 3 + [("A", "G")]) * 4
+    seen = _spy_sharded(monkeypatch)
+    monkeypatch.setattr(exact, "_budgets", lambda: (
+        512 * 512, exact.CPU_PASS1_SNAP_BUDGET))
+    res = align_batch_sharded(pairs, Options(cigar=True), make_mesh())
+    assert [b for _, b, _, _ in seen] == [8, 8]
+    for j, r in enumerate(res):
+        want = (4, "1X") if j % 4 == 3 else (155, "1X16=1X14=128I4=1X24=")
+        assert (r.s, r.cigar_str) == want

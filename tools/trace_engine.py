@@ -5,7 +5,9 @@ Measures what a hand-written kernel would have to beat:
 
 1. batch100k score: the final ladder rung of the 16 x 100 kb bench batch
    (bench.make_pairs, seed 7; B=16, W=32768, the full score budget) as
-   one dispatch: wall / loop cycles.
+   one dispatch: run once to warm it, then wall / loop cycles of the
+   second run; a third run is traced for one second from 30 % of its
+   wall (the late cycles, where the band is full).
 2. a width sweep: B=16 dispatches of the same pairs capped at S_CAP=256
    cycles, at W = 1024 .. 131072 in score mode and 1024 .. 65536 in TB
    mode (the shapes the removed Pallas engines served), each timed and
@@ -17,7 +19,7 @@ Measures what a hand-written kernel would have to beat:
 Fails off the GPU.  Prints one line per measurement and writes the
 summary as JSON to --out (default build/trace_engine.json).
 
-  python3 tools/trace_engine.py [--out FILE]
+  python3 tools/trace_engine.py [--out FILE] [--parts final,sweep,chain]
 """
 
 from __future__ import annotations
@@ -123,11 +125,33 @@ def traced(fn, cycles):
         return reduce_trace(d, cycles)
 
 
+def traced_window(fn, delay_s, span_s, s_per_cycle):
+    """Run ``fn`` on a worker thread and trace [delay_s, delay_s+span_s)
+    of it from this one: a window inside one long dispatch."""
+    import threading
+    import jax
+    th = threading.Thread(target=fn)
+    with tempfile.TemporaryDirectory() as d:
+        th.start()
+        time.sleep(delay_s)
+        jax.profiler.start_trace(d)
+        time.sleep(span_s)
+        jax.profiler.stop_trace()
+        th.join()
+        return reduce_trace(d, max(1.0, span_s / s_per_cycle))
+
+
+PARTS = ("final", "sweep", "chain")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "trace_engine.json"))
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated subset of " + ",".join(PARTS))
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
 
     import jax
     import numpy as np
@@ -147,34 +171,61 @@ def main(argv=None) -> int:
     summary = {"device_kind": dev.device_kind}
     print(f"device: {dev.device_kind}", flush=True)
 
-    # --- 1. batch100k score, final bucket, timed and traced
+    failed = []
+    # --- 1. batch100k score, final bucket: warm, timed, late window traced
     pairs = [(t.encode(), q.encode())
              for t, q in bench.make_pairs(100_000, 16, seed=7)]
     ts, qs = [t for t, _ in pairs], [q for _, q in pairs]
     opt = Options()
     # the final rung of align_batch's ladder for this batch in score mode
     # (the one that completes every lane; chip_smoke's MWF_PROF lines)
-    bk = exact._buckets_for(opt, ts, qs, 32768, 0)
-    bk = exact._Buckets(bk.B, bk.LT, bk.LQ, bk.W, bk.S_full, bk.W_full,
-                        bk.S_full)
-    out, wall = dispatch(opt, MODE_SCORE, bk, ts, qs)
-    if bool(np.asarray(out["overflow"]).any()):
-        raise RuntimeError("W=32768 no longer completes batch100k")
-    cycles = int(np.asarray(out["final_s"]).max()) + 1
-    row = {"B": bk.B, "W": bk.W, "S_CAP": bk.S_CAP, "cycles": cycles,
-           "wall_s": wall, "wall_us_per_cycle": wall / cycles * 1e6}
-    summary["batch100k_score_final_dispatch"] = row
-    print(f"batch100k score final dispatch B={bk.B} W={bk.W} "
-          f"cycles={cycles} wall={wall:.3f}s (first run: compile cache "
-          f"retrieval included) wall/cycle={row['wall_us_per_cycle']:.2f}us",
-          flush=True)
+    bk, _ = exact._first_rung(opt, MODE_SCORE,
+                              exact._buckets_for(opt, ts, qs, 32768, 0))
+    if "final" in parts:
+        out, first = dispatch(opt, MODE_SCORE, bk, ts, qs)   # compile, warm
+        if bool(np.asarray(out["overflow"]).any()):
+            raise RuntimeError("W=32768 no longer completes batch100k")
+        cycles = int(np.asarray(out["final_s"]).max()) + 1
+        wall = dispatch(opt, MODE_SCORE, bk, ts, qs)[1]
+        row = {"B": bk.B, "W": bk.W, "S_CAP": bk.S_CAP, "cycles": cycles,
+               "first_wall_s": first, "wall_s": wall,
+               "wall_us_per_cycle": wall / cycles * 1e6}
+        print(f"batch100k score final dispatch B={bk.B} W={bk.W} "
+              f"cycles={cycles} first={first:.3f}s warm={wall:.3f}s "
+              f"wall/cycle={row['wall_us_per_cycle']:.2f}us", flush=True)
+        # a third run, traced for span_s from 30 % of the warm wall: the
+        # late cycles, which a whole-run trace could not hold
+        span = 1.0
+        summary["batch100k_score_final_dispatch"] = row
+        try:
+            tr = traced_window(
+                lambda: dispatch(opt, MODE_SCORE, bk, ts, qs),
+                0.3 * wall, span, wall / cycles)
+        except RuntimeError as e:     # keep the walls; report the trace
+            failed.append(f"late window: {e}")
+            print(f"batch100k score late window trace failed: {e}",
+                  flush=True)
+        else:
+            row["late_window"] = {k: tr[k] for k in (
+                "window_ns", "busy_ns", "idle_share", "kernels",
+                "top_kernels")}
+            print(f"batch100k score late window ({span:.1f}s from "
+                  f"{0.3 * wall:.1f}s): idle_share={tr['idle_share']:.4f} "
+                  f"busy={tr['busy_ns'] / 1e6:.1f}ms "
+                  f"window={tr['window_ns'] / 1e6:.1f}ms "
+                  f"kernels={tr['kernels']}", flush=True)
+            for k in tr["top_kernels"]:
+                print(f"    {k['ns'] / 1e6:10.3f} ms {k['count']:7d}x "
+                      f"{k['name']}", flush=True)
 
     # --- 2. width sweep at the removed engines' shapes
-    sweep, failed = [], []
+    sweep = []
     LT = LQ = 131072
     for mode, widths in ((MODE_SCORE,
                           (1024, 4096, 16384, 32768, 65536, 131072)),
                          (MODE_TB, (1024, 4096, 16384, 65536))):
+        if "sweep" not in parts:
+            break
         for W in widths:
             sbk = exact._Buckets(16, LT, LQ, W, 256, W, 256)
             o = Options(cigar=mode == MODE_TB)
@@ -211,6 +262,8 @@ def main(argv=None) -> int:
     summary["sweep"] = sweep
 
     # --- 3. chain gap fills (div100k)
+    if "chain" not in parts:
+        return finish(summary, args.out, failed)
     t, q = gen_case("div100k")
     copt = Options(cigar=True)
     align_chain_batch([(t, q)], copt)                # compile + warm
@@ -232,10 +285,14 @@ def main(argv=None) -> int:
         failed.append(f"chain: {e}")
         print(f"chain div100k trace failed: {e}", flush=True)
 
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    return finish(summary, args.out, failed)
+
+
+def finish(summary, out, failed) -> int:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(summary, f, indent=1)
-    print(f"summary -> {args.out}", flush=True)
+    print(f"summary -> {out}", flush=True)
     return 1 if failed else 0
 
 
